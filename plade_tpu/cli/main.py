@@ -73,6 +73,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     from ..core.config import PladeConfig
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
     cfg = PladeConfig(enable_icp=True) if args.icp else PladeConfig()
 
     if args.profile:

@@ -1,20 +1,20 @@
 """Multi-host process-group setup and cross-host batch orchestration.
 
 The reference has no distributed story at all (SURVEY section 2.3); this
-module is the DCN layer of the TPU-native elevation: N hosts each drive
-their local chips, the pairs axis shards globally, and only the small
+module is the cross-host layer of the mesh design: N hosts each drive
+their local devices, the pairs axis shards globally, and only the small
 RegistrationResult pytrees travel cross-host.
 
-Usage on each host of a pod slice (or under a launcher that sets the
-standard JAX env vars):
+Usage on each host (under a launcher that sets the standard JAX env
+vars):
 
     from plade_tpu.dist import multihost
-    multihost.initialize()                 # jax.distributed over DCN
-    mesh = multihost.global_mesh(intra=1)  # (pairs, intra) over ALL chips
+    multihost.initialize()                 # jax.distributed across hosts
+    mesh = multihost.global_mesh(intra=1)  # (pairs, intra) over ALL devices
     results = mesh_mod.register_batch(tgt_b, src_b, keys, cfg, mesh)
 
 With `jax.make_array_from_process_local_data` each host feeds only its
-own shard of the pairs axis; XLA/GSPMD handles ICI collectives inside a
+own shard of the pairs axis; XLA/GSPMD handles the collectives inside a
 pair (intra axis) and no cross-pair communication exists by construction.
 """
 from __future__ import annotations
@@ -33,8 +33,8 @@ def initialize(coordinator_address: str | None = None,
     """Initialize jax.distributed when running multi-process.
 
     Arguments default to the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID) or the TPU metadata autodetection
-    built into jax.distributed.initialize.  Returns True when a
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID); with none of them set the run is
+    single-process.  Returns True when a
     multi-process group was initialized, False for single-process runs
     (everything keeps working on the local devices).
     """

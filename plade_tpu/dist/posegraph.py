@@ -2,7 +2,7 @@
 
 The reference registers each pair independently and stops (batch mode,
 code/PLADE/main.cpp:97-158); multi-scan scenes (RESSO sequences) get no
-global consistency.  This module is the TPU-native elevation (SURVEY
+global consistency.  This module adds it (SURVEY
 section 7, build-plan step 7): given pairwise estimates
 ``T_ij`` (mapping scan j's frame into scan i's frame) with confidence
 weights, recover world-from-scan poses ``(R_k, t_k)`` for all K scans.

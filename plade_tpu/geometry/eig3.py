@@ -4,7 +4,7 @@
 general matrices; every eigenproblem in this pipeline is a 3x3 covariance
 (cloud OBBs — geometry/obb.py; per-plane OBBs; RANSAC refit plane fits —
 extract/ransac.py), where the trigonometric closed form (Smith 1961,
-"Eigenvalues of a symmetric 3x3 matrix") is a handful of VPU ops and
+"Eigenvalues of a symmetric 3x3 matrix") is a handful of elementwise ops and
 batches over any leading dimensions.
 
 Eigenvectors come from cross products of rows of (A - lambda I): the rows

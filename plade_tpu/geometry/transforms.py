@@ -1,6 +1,6 @@
 """SE(3) utilities: rotation estimation, Euler angles, transforms.
 
-TPU-native replacements for the reference's PCL/Eigen calls:
+Device-side replacements for the reference's PCL/Eigen calls:
 
 * :func:`rotation_from_two_vecs` replaces
   ``ComputeTransformationUsingTwoVecAndOnePoint`` (code/PLADE/util.cpp:604-624)

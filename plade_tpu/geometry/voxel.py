@@ -2,7 +2,7 @@
 
 Replaces ``pcl::VoxelGrid`` / ``DownSamplePointCloud`` (code/PLADE/util.h:
 161-184): every occupied voxel of side ``leaf`` contributes the centroid of
-its points.  TPU formulation: lexsort points by integer cell coordinates,
+its points.  Device formulation: lexsort points by integer cell coordinates,
 mark segment boundaries, scatter-mean into a padded output buffer.
 
 Cells are ordered by a *hash* of their coordinates (ties broken by the

@@ -1,6 +1,6 @@
 """Host-side PLY reader/writer (numpy).
 
-TPU-native replacement for the reference's rply-based ingest
+Replacement for the reference's rply-based ingest
 (code/3rd_party/rply/rply.c; code/PLADE/ply_reader.cpp:47-139,334-358):
 parses ascii and binary little/big-endian PLY, merges ``x,y,z`` into points
 and ``nx,ny,nz`` into normals.  Like ``load_ply_cloud``

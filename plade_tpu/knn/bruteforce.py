@@ -2,10 +2,10 @@
 
 The reference funnels every neighbor query through FLANN/ANN KD-trees
 (pcl::search::KdTree — SURVEY 2.2 rows 6, 8, 9).  Pointer-chasing trees are
-the wrong shape for a TPU; at the sizes this pipeline sees (downsampled
-clouds of 10^4 points) the dense distance computation is a small
-GEMM-shaped op that lives happily on the MXU/VPU.  All entry points stream
-over reference blocks with ``lax.map`` so memory stays bounded at
+the wrong shape for an accelerator; at the sizes this pipeline sees
+(downsampled clouds of 10^4 points) the dense distance computation is a
+streaming elementwise op fused into its reduction.  All entry points
+stream over reference blocks with ``lax.scan`` so memory stays bounded at
 ``Q x block`` regardless of cloud size.
 
 Padding convention: invalid points sit at BIG (core/types.py), so they can
@@ -20,16 +20,15 @@ import jax.numpy as jnp
 
 
 def _block_dist_sq(q: jnp.ndarray, r: jnp.ndarray) -> jnp.ndarray:
-    """(Q,3) x (B,3) -> (Q,B) squared distances via the |q|^2-2qr+|r|^2
-    expansion; the cross term is an MXU matmul."""
-    qq = jnp.sum(q * q, axis=-1, keepdims=True)
-    rr = jnp.sum(r * r, axis=-1)
-    # precision=highest is load-bearing: bf16 MXU inputs put O(1e-2) noise
-    # on the cancelled expansion, swamping spacing-scale distances (see
-    # package docstring)
-    cross = jnp.dot(q, r.T, preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)
-    return jnp.maximum(qq - 2.0 * cross + rr[None, :], 0.0)
+    """(Q,3) x (B,3) -> (Q,B) squared distances in diff form
+    ``(q-r).(q-r)``: exact where the |q|^2 - 2 q.r + |r|^2 expansion
+    cancels at spacing-scale distances, and a chain of elementwise ops
+    that XLA fuses into the reduction consuming it, so the (Q, B) block
+    never reaches device memory."""
+    dx = q[:, 0, None] - r[None, :, 0]
+    dy = q[:, 1, None] - r[None, :, 1]
+    dz = q[:, 2, None] - r[None, :, 2]
+    return dx * dx + dy * dy + dz * dz
 
 
 def _blocks(refs: jnp.ndarray, block: int) -> jnp.ndarray:
@@ -43,33 +42,16 @@ def _blocks(refs: jnp.ndarray, block: int) -> jnp.ndarray:
 
 def min_dist_sq(queries: jnp.ndarray, refs: jnp.ndarray,
                 block: int = 2048) -> jnp.ndarray:
-    """Per-query squared distance to the nearest reference point.
+    """Per-query squared distance to the nearest reference point."""
+    rb = _blocks(refs, block)
 
-    Lowers to the Pallas tiled NN kernel on TPU (kernels/nn.py — measured
-    ~470x over the scan-of-matmuls formulation, which pays 6-pass f32
-    matmul passes for a K=3 contraction); blocked jnp elsewhere.  The
-    branch is resolved per lowering platform (lax.platform_dependent):
-    backend sniffing misfires here because the TPU plugin stays the
-    default backend even when computations are placed on CPU devices
-    (virtual-mesh tests, driver dry-runs).
-    """
-    def _pallas(q, r):
-        from ..kernels.nn import min_dist_sq as pallas_min_dist_sq
-        return pallas_min_dist_sq(q, r)
+    def step(carry, rr):
+        return jnp.minimum(
+            carry, jnp.min(_block_dist_sq(queries, rr), axis=1)), None
 
-    def _jnp(q, r):
-        rb = _blocks(r, block)
-
-        def step(carry, rr):
-            return jnp.minimum(
-                carry, jnp.min(_block_dist_sq(q, rr), axis=1)), None
-
-        init = jnp.full((q.shape[0],), jnp.inf, jnp.float32)
-        out, _ = jax.lax.scan(step, init, rb)
-        return out
-
-    return jax.lax.platform_dependent(queries, refs,
-                                      tpu=_pallas, default=_jnp)
+    init = jnp.full((queries.shape[0],), jnp.inf, jnp.float32)
+    out, _ = jax.lax.scan(step, init, rb)
+    return out
 
 
 def count_within(queries: jnp.ndarray, refs: jnp.ndarray, radius,
@@ -88,34 +70,25 @@ def count_within(queries: jnp.ndarray, refs: jnp.ndarray, radius,
 
 def nearest_neighbor(queries: jnp.ndarray, refs: jnp.ndarray,
                      block: int = 2048):
-    """Per-query (squared distance, index) of the nearest reference point.
+    """Per-query (squared distance, index) of the nearest reference point;
+    ties go to the lowest index."""
+    rb = _blocks(refs, block)
 
-    Pallas kernel on TPU, blocked jnp elsewhere (see min_dist_sq)."""
-    def _pallas(q, r):
-        from ..kernels.nn import nearest_neighbor as pallas_nn
-        return pallas_nn(q, r)
+    def step(carry, rb_base):
+        best_d, best_i = carry
+        rr, base = rb_base
+        d = _block_dist_sq(queries, rr)
+        bd = jnp.min(d, axis=1)
+        bi = jnp.argmin(d, axis=1).astype(jnp.int32) + base
+        take = bd < best_d
+        return (jnp.where(take, bd, best_d),
+                jnp.where(take, bi, best_i)), None
 
-    def _jnp(q, r):
-        rb = _blocks(r, block)
-
-        def step(carry, rb_base):
-            best_d, best_i = carry
-            rr, base = rb_base
-            d = _block_dist_sq(q, rr)
-            bd = jnp.min(d, axis=1)
-            bi = jnp.argmin(d, axis=1).astype(jnp.int32) + base
-            take = bd < best_d
-            return (jnp.where(take, bd, best_d),
-                    jnp.where(take, bi, best_i)), None
-
-        init = (jnp.full((q.shape[0],), jnp.inf, jnp.float32),
-                jnp.zeros((q.shape[0],), jnp.int32))
-        bases = jnp.arange(rb.shape[0], dtype=jnp.int32) * block
-        (d2, idx), _ = jax.lax.scan(step, init, (rb, bases))
-        return d2, idx
-
-    return jax.lax.platform_dependent(queries, refs,
-                                      tpu=_pallas, default=_jnp)
+    init = (jnp.full((queries.shape[0],), jnp.inf, jnp.float32),
+            jnp.zeros((queries.shape[0],), jnp.int32))
+    bases = jnp.arange(rb.shape[0], dtype=jnp.int32) * block
+    (d2, idx), _ = jax.lax.scan(step, init, (rb, bases))
+    return d2, idx
 
 
 def topk_dist_sq(queries: jnp.ndarray, refs: jnp.ndarray, k: int,
@@ -123,15 +96,9 @@ def topk_dist_sq(queries: jnp.ndarray, refs: jnp.ndarray, k: int,
     """(Q, k) smallest squared distances (ascending) to the references.
 
     Streams query blocks against the full reference row and selects with
-    ``lax.approx_min_k`` (TPU sort unit; exact-sort fallback elsewhere).
-    k-successive-argmin over reference blocks was measured ~50x slower.
-
-    Selection oversamples 2k+4 approximate neighbors and keeps the exact
-    smallest k of those: a true top-k entry is missed only if it falls
-    outside the approximate top-(2k+4), driving the per-entry ~0.95 recall
-    of the raw approximation to ~1 while keeping its cost.  Forcing
-    recall_target=1.0 instead lowers to a full per-row sort — measured 10x
-    slower on the 131k-point sample clouds, dominating the whole pipeline.
+    ``lax.approx_min_k``, oversampling 2k+4 neighbors and keeping the
+    smallest k of those.  On the GPU and the CPU ``approx_min_k`` lowers to
+    an exact top-k, so the oversampling is redundant (ROADMAP Design 3).
     """
     Q = queries.shape[0]
     T = refs.shape[0]

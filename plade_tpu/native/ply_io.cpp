@@ -1,6 +1,6 @@
 // Native PLY reader/writer + threaded batch loader.
 //
-// TPU-native counterpart of the reference's C runtime IO (rply —
+// Native counterpart of the reference's C runtime IO (rply —
 // code/3rd_party/rply/rply.c — driven by code/PLADE/ply_reader.cpp). The
 // reference funnels every value through per-property C callbacks; here the
 // dominant format (binary little-endian, fixed-stride vertex records — all

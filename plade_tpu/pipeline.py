@@ -1,6 +1,6 @@
 """End-to-end pair registration pipeline.
 
-TPU-native counterpart of the 550-line core ``registration`` overload
+Device counterpart of the 550-line core ``registration`` overload
 (code/PLADE/plade.cpp:31-580); see SURVEY section 3.1 for the reference
 call stack.  The per-pair flow:
 
@@ -550,7 +550,7 @@ def _pad_size(n: int, minimum: int = 4096, maximum: int | None = None) -> int:
 def _cap_cloud(points, normals, max_points: int, seed: int = 0):
     """Uniform random subsample when a cloud exceeds the static-shape budget
     (``cfg.max_points``).  The reference has no such cap — it is the padded
-    buffer ceiling the TPU programs are compiled for.
+    buffer ceiling the device programs are compiled for.
 
     Returns (points, normals, capped) — ``capped`` is True when the
     subsample fired (callers surface it through their info dicts)."""

@@ -4,10 +4,10 @@
 for "icp" under code/PLADE/ — SURVEY "Critical negative findings"); its
 output is the raw best-overlap hypothesis (code/PLADE/plade.cpp:545-575),
 which is why the bundled room-pair result differs from ground truth at the
-second decimal.  This module closes that gap the TPU way:
+second decimal.  This module closes that gap on the device:
 
 * correspondences: nearest target neighbor per transformed source point as
-  one blocked dense distance pass (MXU), no KD-tree;
+  one blocked dense distance pass, no KD-tree;
 * residuals: point-to-plane ``n_q . (R s + t - q)`` with a correspondence
   distance gate;
 * update: one 6x6 Gauss-Newton solve per iteration (twist [w; v]), applied

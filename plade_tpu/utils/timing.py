@@ -1,6 +1,6 @@
 """Stage timing + profiling hooks.
 
-TPU-aware counterpart of the reference's ``StopWatch`` wall timers
+Device-aware counterpart of the reference's ``StopWatch`` wall timers
 (code/PLADE/util.cpp:1682-1765, used around every pipeline stage at
 plade.cpp:72,542,577) and console progress bar (util.cpp:1651-1669).
 Device work is asynchronous, so a useful stage timer must

@@ -6,8 +6,7 @@ points that land within ``inlier_distance`` of a downsampled target point,
 normalized by min(|source|, |target|) (the reference's MIN at util.h:644 —
 so the ratio can exceed 1 when the source downsamples larger).
 
-TPU design (profiling: per-query bucket walks are gather-bound and were 85%
-of pipeline time):
+Design (per-query bucket walks are gather-bound, so both phases are dense):
 
   phase 1 — approximate, all candidates: one dense dilated voxel-occupancy
     bitmap over the target (cell == inlier radius, 27-neighborhood dilation
@@ -15,8 +14,8 @@ of pipeline time):
     single gather.  The dilated test is a *superset* of the exact radius
     test: any point with a true neighbor within r passes.
   phase 2 — exact, top-K candidates by approximate count: blocked dense
-    min-distance on the MXU (|q|^2 - 2 q.p + |p|^2 expansion).  The final
-    ranking among the survivors is exact.
+    min-distance in diff form (knn/bruteforce.py).  The final ranking
+    among the survivors is exact.
 
 The reference's coarse-sphere pre-clip (util.h:622-636) is an optimization
 with negligible semantic effect (it can only exclude target points farther
@@ -27,7 +26,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..knn.bruteforce import min_dist_sq
+from ..knn.bruteforce import _blocks, _block_dist_sq, min_dist_sq
 
 
 def build_occupancy(tgt_points, tmask, radius, grid: int = 256,
@@ -108,46 +107,21 @@ def _unit(v):
 
 def oriented_min_dist_sq(q, qn, refs, rn, normal_cos, block: int = 2048):
     """Per-query squared distance to the nearest reference point whose
-    normal agrees (``qn . rn >= normal_cos``).
+    normal agrees (``qn . rn >= normal_cos``); inf where none does.
 
-    On TPU: the Pallas oriented NN kernel (kernels/nn.py — VPU diff-form
-    distances + in-kernel normal gate; the jnp fallback below pays 6-pass
-    HIGHEST matmuls AND a full (Q, block) where/min per block, measured
-    the batched tail's largest unit-saturating stage).  The jnp blocked
-    scan remains the CPU/dry-run path."""
-    def _pallas(q, qn, refs, rn):
-        from ..kernels.nn import oriented_min_dist_sq as k
-        return k(q, qn, refs, rn, float(normal_cos))
-
-    def _jnp(q, qn, refs, rn):
-        return _oriented_min_dist_sq_jnp(q, qn, refs, rn, normal_cos, block)
-
-    return jax.lax.platform_dependent(q, qn, refs, rn,
-                                      tpu=_pallas, default=_jnp)
-
-
-def _oriented_min_dist_sq_jnp(q, qn, refs, rn, normal_cos,
-                              block: int = 2048):
-    n = refs.shape[0]
-    pad = (-n) % block
-    if pad:
-        refs = jnp.concatenate(
-            [refs, jnp.full((pad, 3), 1e8, refs.dtype)], axis=0)
-        rn = jnp.concatenate([rn, jnp.zeros((pad, 3), rn.dtype)], axis=0)
-    rb = refs.reshape(-1, block, 3)
-    rnb = rn.reshape(-1, block, 3)
-    qq = jnp.sum(q * q, axis=-1, keepdims=True)
-    hi = jax.lax.Precision.HIGHEST
+    Diff-form distances and the normal dot are elementwise chains that XLA
+    fuses into each block's min, like knn.bruteforce.min_dist_sq."""
+    rb = _blocks(refs, block)
+    # padded refs get zero normals: dot 0 never passes a positive gate
+    rnb = jnp.pad(rn, ((0, rb.shape[0] * block - rn.shape[0]), (0, 0))) \
+        .reshape(-1, block, 3)
 
     def step(carry, rrnn):
         rr, nn = rrnn
-        d2 = jnp.maximum(
-            qq - 2.0 * jnp.dot(q, rr.T, preferred_element_type=jnp.float32,
-                               precision=hi)
-            + jnp.sum(rr * rr, axis=-1)[None, :], 0.0)
-        # normal agreement: padded refs have zero normals -> dot 0 -> cut
-        dots = jnp.dot(qn, nn.T, preferred_element_type=jnp.float32)
-        d2 = jnp.where(dots >= normal_cos, d2, jnp.inf)
+        dots = (qn[:, 0, None] * nn[None, :, 0]
+                + qn[:, 1, None] * nn[None, :, 1]
+                + qn[:, 2, None] * nn[None, :, 2])
+        d2 = jnp.where(dots >= normal_cos, _block_dist_sq(q, rr), jnp.inf)
         return jnp.minimum(carry, jnp.min(d2, axis=1)), None
 
     init = jnp.full((q.shape[0],), jnp.inf, jnp.float32)
@@ -158,12 +132,11 @@ def _oriented_min_dist_sq_jnp(q, qn, refs, rn, normal_cos,
 def exact_overlap_counts(R, t, src_points, smask, tgt_points, r2,
                          src_normals=None, tgt_normals=None,
                          normal_cos: float = 0.0):
-    """Exact per-candidate inlier counts via the tiled NN kernel.
+    """Exact per-candidate inlier counts by dense nearest-neighbour search.
     R: (K,3,3), t: (K,3).
 
-    All K transformed source clouds are concatenated into ONE query array
-    so the distance kernel launches once ((K*S, T) tiles) instead of K
-    serialized times.
+    All K transformed source clouds are concatenated into ONE query array,
+    so the distance search runs once over (K*S, T) instead of K times.
 
     With ``normal_cos > 0`` and normals given, a source point only counts
     when some target point within radius ALSO agrees in normal direction

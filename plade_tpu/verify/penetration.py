@@ -6,7 +6,7 @@ transformed source plane's point set crosses through a target plane (points
 on both sides beyond ``minDistance``) along the clipped intersection segment
 of their bounding quads.
 
-TPU reformulation in three phases:
+Device reformulation in three phases:
 
   1. dense cheap geometry over all (candidate, src plane, tgt plane)
      triples: skip test, plane-plane line, clipping against both 4-corner
@@ -166,7 +166,7 @@ def build_tests(R, t, cand_valid,
 
 def _d2(a, b):
     """Batched squared distances (k,M,3) x (k,S,3) -> (k,M,S); the cross
-    term is a batched GEMM that rides the MXU."""
+    term is a batched GEMM."""
     aa = jnp.sum(a * a, axis=-1)                                # (k,M)
     bb = jnp.sum(b * b, axis=-1)                                # (k,S)
     cross = jnp.einsum("kmi,ksi->kms", a, b,

@@ -21,7 +21,6 @@ MEDIUM = dict(
     min_planes=6,
     max_planes=16,
     bitmap_grid=64,
-    bitmap_cc_iters=24,
     spacing_samples=4000,
     max_ds_points=8192,
     max_plane_points=1024,

@@ -4,6 +4,7 @@ import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from plade_tpu.core.config import PladeConfig
 from plade_tpu.core.types import pad_cloud
@@ -13,7 +14,6 @@ from plade_tpu.io.synthetic import make_room
 TEST_CFG = PladeConfig(
     ransac_candidates_per_round=64,
     bitmap_grid=64,
-    bitmap_cc_iters=48,
 )
 
 
@@ -189,47 +189,98 @@ def test_select_planes_auto_tune(rng):
     assert pp.max() < int(sel.count)
 
 
-def test_cc_kernel_matches_flood_fill(rng):
-    """kernels/cc.py close_and_label (interpret mode) against a numpy
-    flood fill on random occupancy grids: same components after the
-    morphological close, labels = component-min flat index."""
+def _closed_flood_fill(occ):
+    """numpy reference for extract.ransac._cc_labels: morphological close
+    with the cross (dilate, erode, union the original), then 8-connected
+    components labelled by their smallest flat index; empty cells G*G."""
     from collections import deque
 
-    from plade_tpu.kernels.cc import close_and_label
+    G = occ.shape[0]
 
+    def cross(b, op, pad_val):
+        p = np.pad(b, 1, constant_values=pad_val)
+        return op.reduce([b, p[:-2, 1:-1], p[2:, 1:-1],
+                          p[1:-1, :-2], p[1:-1, 2:]])
+
+    closed = cross(cross(occ > 0, np.logical_or, False),
+                   np.logical_and, True) | (occ > 0)
+    expect = np.full((G, G), G * G, np.int32)
+    seen = np.zeros((G, G), bool)
+    for r in range(G):
+        for c in range(G):
+            if not closed[r, c] or seen[r, c]:
+                continue
+            comp = []
+            dq = deque([(r, c)])
+            seen[r, c] = True
+            while dq:
+                y, x = dq.popleft()
+                comp.append((y, x))
+                for dy in (-1, 0, 1):
+                    for dx in (-1, 0, 1):
+                        yy, xx = y + dy, x + dx
+                        if 0 <= yy < G and 0 <= xx < G \
+                                and closed[yy, xx] and not seen[yy, xx]:
+                            seen[yy, xx] = True
+                            dq.append((yy, xx))
+            m = min(y * G + x for y, x in comp)
+            for y, x in comp:
+                expect[y, x] = m
+    return expect
+
+
+def _serpentine(G):
+    """One component that winds through the whole grid: full rows every
+    fourth line, joined at alternating ends — a path of ~G^2/4 cells, far
+    beyond what a fixed handful of label-propagation steps can cross."""
+    occ = np.zeros((G, G), np.int32)
+    for k, r in enumerate(range(0, G, 4)):
+        occ[r, :] = 1
+        if r + 4 < G:
+            occ[r:r + 5, G - 1 if k % 2 == 0 else 0] = 1
+    return occ
+
+
+@pytest.mark.parametrize("grid_kind", ["random25", "random45", "serpentine"])
+def test_cc_labels_match_flood_fill(grid_kind, rng):
+    """The exact CC (stencil + pointer jumps to a fixpoint) equals a numpy
+    flood fill on 64x64 occupancy grids, the bitmap_grid default."""
     G = 64
-    for trial in range(3):
-        occ = (rng.random((G, G)) < 0.25).astype(np.int32)
-        # reference close (cross): dilate then erode, union original
-        def cross(b, op, pad_val):
-            p = np.pad(b, 1, constant_values=pad_val)
-            return op.reduce([b, p[:-2, 1:-1], p[2:, 1:-1],
-                              p[1:-1, :-2], p[1:-1, 2:]])
-        dil = cross(occ > 0, np.logical_or, False)
-        closed = cross(dil, np.logical_and, True) | (occ > 0)
+    if grid_kind == "serpentine":
+        occ = _serpentine(G)
+    else:
+        occ = (rng.random((G, G)) < int(grid_kind[-2:]) / 100).astype(
+            np.int32)
+    expect = _closed_flood_fill(occ)
+    got = np.asarray(jax.jit(ransac._cc_labels, static_argnums=1)(
+        jnp.asarray(occ.reshape(-1)), G)).reshape(G, G)
+    np.testing.assert_array_equal(got, expect)
+    if grid_kind == "serpentine":
+        assert len(np.unique(expect[expect < G * G])) == 1
 
-        expect = np.full((G, G), G * G, np.int32)
-        seen = np.zeros((G, G), bool)
-        for r in range(G):
-            for c in range(G):
-                if not closed[r, c] or seen[r, c]:
-                    continue
-                comp = []
-                dq = deque([(r, c)])
-                seen[r, c] = True
-                while dq:
-                    y, x = dq.popleft()
-                    comp.append((y, x))
-                    for dy in (-1, 0, 1):
-                        for dx in (-1, 0, 1):
-                            yy, xx = y + dy, x + dx
-                            if 0 <= yy < G and 0 <= xx < G \
-                                    and closed[yy, xx] and not seen[yy, xx]:
-                                seen[yy, xx] = True
-                                dq.append((yy, xx))
-                m = min(y * G + x for y, x in comp)
-                for y, x in comp:
-                    expect[y, x] = m
-        got = np.asarray(close_and_label(jnp.asarray(occ), iters=256,
-                                         interpret=True))
-        np.testing.assert_array_equal(got, expect)
+
+def test_cc_labels_lanes_independent(rng):
+    """Under vmap (one lane per accept slot) each lane labels on its own:
+    occupied columns at every lane edge would merge across a leak."""
+    G, L = 32, 3
+    occ = (rng.random((L, G, G)) < 0.3).astype(np.int32)
+    occ[:, :, 0] = 1
+    occ[:, :, G - 1] = 1
+    occ[1] = _serpentine(G)
+    got = np.asarray(jax.vmap(lambda o: ransac._cc_labels(o, G))(
+        jnp.asarray(occ.reshape(L, -1)))).reshape(L, G, G)
+    for lane in range(L):
+        np.testing.assert_array_equal(got[lane], _closed_flood_fill(occ[lane]))
+
+
+def test_hist_scatter_matches_histogram2d(rng):
+    """The trim's occupancy histogram against np.histogram2d, with
+    weights masking out non-inliers."""
+    G = 16
+    ij = rng.integers(0, G, size=(500, 2)).astype(np.int32)
+    w = rng.random(500) < 0.6
+    got = np.asarray(ransac._hist_scatter(jnp.asarray(ij), jnp.asarray(w),
+                                          G)).reshape(G, G)
+    want, _, _ = np.histogram2d(ij[:, 0], ij[:, 1], bins=G,
+                                range=[[0, G], [0, G]], weights=w)
+    np.testing.assert_array_equal(got, want.astype(np.int32))

@@ -1,9 +1,9 @@
 """Golden test vs the reference's bundled sample pair + ground truth.
 
 The polyhedron pair is the reference's de-facto acceptance artifact
-(sample_data/polyhedron_source_groundtruth.txt; SURVEY section 4).  The full
-default-size pipeline takes minutes to compile, so this runs only when
-PLADE_RUN_GOLDEN=1 (the bench path exercises it on TPU every round).
+(sample_data/polyhedron_source_groundtruth.txt; SURVEY section 4).  These
+run the full default-size pipeline, so they run on the card only
+(``python -m pytest -m gpu tests/``) and skip elsewhere.
 """
 import os
 
@@ -17,13 +17,12 @@ GT = np.array([
     [-0.26320, -0.09234, -0.96031, 0.15475],
     [0.0, 0.0, 0.0, 1.0]])
 
-pytestmark = pytest.mark.skipif(
-    os.environ.get("PLADE_RUN_GOLDEN") != "1"
-    or not os.path.isdir(SAMPLE_DIR),
-    reason="golden run is slow; set PLADE_RUN_GOLDEN=1")
+pytestmark = pytest.mark.gpu
 
 
-def test_polyhedron_pair_matches_groundtruth():
+def test_polyhedron_pair_matches_groundtruth(gpu):
+    if not os.path.isdir(SAMPLE_DIR):
+        pytest.skip("the polyhedron sample pair is not present")
     from plade_tpu.core.config import PladeConfig
     from plade_tpu.pipeline import register_files
 
@@ -41,7 +40,7 @@ def test_polyhedron_pair_matches_groundtruth():
     assert trans_err < 0.05, (T, trans_err)
 
 
-def test_small_overlap_fullscale_scan_pair():
+def test_small_overlap_fullscale_scan_pair(gpu):
     """Full-scale partial-overlap golden (VERDICT r2 next #1): two ~90k-pt
     scans sharing <= 40% of their points, default config.  The step/radius
     choice is validated in-test by measuring the actual shared fraction in
@@ -52,7 +51,7 @@ def test_small_overlap_fullscale_scan_pair():
 
     # step/radius calibrated so the measured shared fraction below is
     # ~0.31 (the 3.4 step used before round 4 produced 0.52 — NOT a
-    # small-overlap scene; this test had never actually run on TPU)
+    # small-overlap scene)
     rng = np.random.default_rng(21)
     radius, step = 3.2, 4.0
     scans, poses = make_scan_sequence(
@@ -79,7 +78,7 @@ def test_small_overlap_fullscale_scan_pair():
     assert trans_err < 0.15, (T, trans_err)
 
 
-def test_noisy_fullscale_scan_pair():
+def test_noisy_fullscale_scan_pair(gpu):
     """Full-scale noisy golden standing in for the missing room pair
     (VERDICT missing #4): ~94k-point synthetic building scans with
     realistic scan noise (0.5% of extent), ~6 deg per-point normal error,
@@ -110,7 +109,7 @@ def test_noisy_fullscale_scan_pair():
     assert trans_err < 0.15, (T, trans_err)
 
 
-def test_rescore_overturns_coarse_alias_and_reports_its_ranking():
+def test_rescore_overturns_coarse_alias_and_reports_its_ranking(gpu):
     """VERDICT r4 next-#5 'Done' criterion: on a scene where the tight
     co-visible rescore OVERTURNS the coarse argmax (a 180-degree lattice
     alias wins the reference-style coarse score), the returned transform
@@ -120,7 +119,7 @@ def test_rescore_overturns_coarse_alias_and_reports_its_ranking():
 
     Scene: synthetic scan sequence seed 1, pair 1->2 (60k points), where
     rescore_top_k=0 measurably locks rot ~180 deg / trans ~6.7 while the
-    default config recovers rot 0.06 deg (tools-measured on TPU)."""
+    default config recovers rot 0.06 deg."""
     import dataclasses
 
     import jax

@@ -13,7 +13,6 @@ SMALL_CFG = PladeConfig(
     min_planes=6,
     max_planes=12,
     bitmap_grid=64,
-    bitmap_cc_iters=48,
     spacing_samples=2000,
     max_ds_points=4096,
     max_plane_points=1024,

@@ -1,7 +1,7 @@
 """Run the REFERENCE binary over the synthetic RESSO-equivalent scenes.
 
 Turns "recall parity" into a measured comparison (VERDICT r2 next-#5): the
-same scene directories `tools/run_eval.py` evaluates the TPU pipeline on are
+same scene directories `tools/run_eval.py` evaluates this pipeline on are
 fed, pair by pair, to the reference binary built in place from
 `/root/reference/code/PLADE` via the mini-PCL shim (tools/refbaseline/,
 binary at .ref_build/PLADE — see tools/refbaseline/README.md).  Results are
